@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Recoverability at the medical-class extinction scale=100 (VERDICT r2
-item 6): turn the round-2 identifiability *assertion* into evidence.
+"""Recoverability at the medical-class extinction scale=100: turn the
+round-2 identifiability *assertion* into evidence.
 
 Round 1's 256^3 scale-100 inverse run diverged (grid_mse_ratio 1.27);
 round 2 argued the cause is observability, not optimization: at
@@ -17,10 +17,10 @@ grid-MSE by the identifiability criterion
                  minimal escape depth — see observability_depth)
 
 into the observable shell (tau_min < tau_c) and the unobservable
-interior (tau_min >= tau_c).  Expected result, and the committed
-evidence: the shell's MSE ratio drops well below 1 while the interior
-stays at (or drifts from) the prior — scale 100 is recoverable exactly
-where the physics says it can be.
+interior (tau_min >= tau_c).  Expected result: the shell's MSE ratio
+drops well below 1 while the interior stays at (or drifts from) the
+prior — scale 100 is recoverable exactly where the physics says it can
+be.  Runs on the GPU only.
 
 Reference match: BASELINE config 5's medical framing; the recipe is
 benchmarks/inverse_256.py's with the scale flag at 100.
@@ -48,9 +48,17 @@ def main() -> int:
     parser.add_argument("--tau-c", type=float, default=5.0)
     parser.add_argument("--tv", type=float, default=2e-3)
     parser.add_argument("--steps", type=int, nargs="+", default=[30, 20, 15])
-    parser.add_argument("--out", default="benchmarks/results_scale100.json")
+    parser.add_argument("--out", default=None,
+                        help="also write the result JSON here")
     args = parser.parse_args()
 
+    from cudavolumerenderer_tpu.utils.device import (
+        enable_compile_cache,
+        require_gpu,
+    )
+
+    require_gpu()
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from cudavolumerenderer_tpu.models.differentiable import SceneSpec
@@ -123,8 +131,9 @@ def main() -> int:
         "observability_split": split,
     }
     print(json.dumps(result, indent=2), flush=True)
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=2)
     return 0
 
 

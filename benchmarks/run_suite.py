@@ -6,6 +6,8 @@ Mrays/s with discard-first-trial statistics, plus the tiling table.
 Usage:
     python benchmarks/run_suite.py [--quick] [--out results.json]
 
+Runs on the GPU only.
+
 Scenes are synthetic stand-ins with the reference workloads' shapes
 (the original volumes are LFS-stubbed): bucky-class 32^3, smoke-class
 128x128x50 @ scale 800, medical-class 256^3 @ scale 100.
@@ -38,6 +40,14 @@ def main() -> int:
     )
     args = parser.parse_args()
 
+    from cudavolumerenderer_tpu.utils.device import (
+        enable_compile_cache,
+        require_gpu,
+    )
+
+    require_gpu()
+    enable_compile_cache()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     import jax.numpy as jnp
 
     from cudavolumerenderer_tpu.config import Config, Kernel

@@ -1,9 +1,9 @@
-// cvr_native: native data-path kernels for the TPU volume renderer.
+// cvr_native: native data-path kernels for the volume renderer.
 //
 // The reference implements its data path in C++ (scene file parsing in
 // XmlSceneBuilder/RawSceneBuilder, sparse->dense flattening in
 // vdb_adapter/VDBAdapter.cpp, Morton re-layout in Volume::ZYXToMortonOrder,
-// image encoding via stb).  This library is the TPU build's equivalent:
+// image encoding via stb).  This library is this build's equivalent:
 // host-side preprocessing that feeds device arrays, exposed to Python via
 // ctypes (see cudavolumerenderer_tpu/utils/native.py) with pure-NumPy
 // fallbacks when the shared object is absent.
@@ -117,9 +117,8 @@ int cvr_morton_reorder(const float* src, float* dst, int32_t nx, int32_t ny,
 }
 
 // ------------------------------------------------------------- bricks
-// Brick geometry chosen for the TPU's (sublane, lane) = (8, 128) tiling:
-// 4x4x8 voxels = 128 entries, x-fastest inside the brick, so one brick is
-// exactly one 128-lane vector row for tpu.dynamic_gather.
+// Brick geometry: 4x4x8 voxels = 128 entries, x-fastest inside the brick,
+// so one brick is one contiguous 512-byte row.
 static const int BX = 8, BY = 4, BZ = 4;  // x-fastest: 8*4*4 = 128
 
 int cvr_brick_pack(const float* src, float* dst, float* brick_max,

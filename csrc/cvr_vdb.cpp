@@ -1,6 +1,6 @@
 // cvr_vdb: native OpenVDB (.vdb) file reader — sparse->dense flattening.
 //
-// TPU-native equivalent of the reference's VDBAdapter (reference:
+// From-scratch equivalent of the reference's VDBAdapter (reference:
 // vdb_adapter/VDBAdapter.cpp:15-131): opens a .vdb archive, locates a
 // grid by name, and densifies its active voxels into a caller buffer
 // over the active-voxel bounding box (x-fastest, inactive voxels = 0 —

@@ -25,11 +25,9 @@ class Kernel(enum.Enum):
     STREAMING_MK = "streamingMK"
     STREAMING_SK = "streamingSK"
     SORTING_SK = "sortingSK"
-    #: beyond-reference TPU-tuned scheduler (models/fast.py): lane-pinned
+    #: beyond-reference wavefront scheduler (models/fast.py): lane-pinned
     #: pixels, fused albedo+density gather, stochastic trilinear filtering
     FAST_SK = "fastSK"
-    #: experimental Pallas brick-wavefront scheduler (models/brick.py)
-    BRICK_SK = "brickSK"
     #: queue-fed fast wavefront with deferred splat flush (models/fastq.py)
     FAST_Q = "fastQ"
 
@@ -111,7 +109,7 @@ class Config:
     n_lanes: Optional[int] = None
     #: regeneration granularity level (reference:
     #: REGENERATION_SYNCHRONIZATION_LEVEL, Defines.h:40-42): 0 = per-lane
-    #: (thread), 1 = per-8-lane sublane group (warp analog), 2 = per-1024
+    #: (thread), 1 = per-8-lane group (warp analog), 2 = per-1024
     #: lane row block (block analog)
     regeneration_level: int = 0
     #: samples per launch for the naive scheduler (memory bound)
@@ -124,19 +122,16 @@ class Config:
     #: deep scattering (medical-class), 1 is best for short-path scenes
     lanes_per_pixel: int = 1
     #: fastSK deferred boundary events: the GGX sampler runs once every
-    #: G iterations for all pending lanes (bit-exact).  Measured a NET
-    #: LOSS on v5e at every G (stalled lanes waste more gather rows than
-    #: the amortized trig saves — PERF.md round-2); kept as a knob,
-    #: default off.
+    #: G iterations for all pending lanes (bit-exact).  Stalled lanes
+    #: waste gather rows that the amortized trig may not repay; default
+    #: off, unmeasured on the GPU (ROADMAP D2).
     defer_ggx: int = 0
     #: fastSK flat-table layout: (8,8,128) brick-major (texture-locality
     #: analog for giant grids); requires grid dims divisible by the brick
     brick_major: bool = False
     #: fastSK cascade pool shrink factor: 2 tracks the lane drain curve
-    #: tighter than the round-1 default 4 (medical-class 7.46 vs 6.53
-    #: Mrays/s)
-    #: may be fractional (1.5, 1.33): finer shrink steps raise
-    #: full-width occupancy at the cost of more compactions
+    #: tighter than 4; may be fractional (1.5, 1.33): finer shrink
+    #: steps raise full-width occupancy at the cost of more compactions
     cascade_factor: float = 2
     #: fastSK tail pools switch to single-level (global-majorant)
     #: tracking with tail_spec speculative steps per gather: narrow
@@ -151,24 +146,21 @@ class Config:
     #: N*K stays small
     spec_width: int = None
     #: cascade bottom pool width (smaller = deeper cascade); None =
-    #: platform default — 128 on TPU (won the round-3 sweep on every
-    #: scene class, PERF.md), 4096 on CPU (deep cascades run serial
-    #: narrow iterations at interpreter speed there).  Pool widths
-    #: quantize to multiples of 256 (sublane alignment), so values
-    #: below 256 are equivalent to 256 (fast._cascade_widths)
+    #: the backend's default (fast._default_min_width: a sweep on the
+    #: card for the GPU, a shallow cascade on CPU).  Pool widths
+    #: quantize to multiples of 256, so values below 256 are
+    #: equivalent to 256 (fast._cascade_widths)
     min_width: Optional[int] = None
     #: finer tail-pool brick granularity (0 = same table as full width)
     tail_bricks: int = 0
     #: fastSK two-level probe-table size cap: pick_brick halves the
     #: brick grid until the count fits (fast.pick_brick).  Coarser
     #: bricks (512 = 8^3 grid) trade majorant tightness for fewer
-    #: brick-transit rows — the measured medical-class optimum
-    #: (PERF.md round-4/5 sweeps: b8 beats the b32 default by ~5%);
-    #: None = fast.py's default (65536)
+    #: brick-transit rows; None = fast.py's default (65536)
     max_bricks: Optional[int] = None
     #: fastSK quantized packed density table: 32 (off), 8 or 4 bits
     #: per voxel packed into uint32 rows — shrinks the big-table gather
-    #: 4-8x to jump XLA's size-gated rate class (micro_pgather).
+    #: 4-8x so more of it stays in cache.
     #: REDUCED PRECISION: acceptance-probability bias up to
     #: max_density/(2^(bits+1)-2) per tap (~3.3% at 4 bits) — coarser
     #: than the reference texture path's 9-bit interpolation weights.
@@ -181,12 +173,6 @@ class Config:
     #: smaller-table gather rate class.  Off by default so the default
     #: estimator stays full-precision.
     allow_quantized: bool = False
-    #: fastSK persistent Pallas tail kernel (ops/pallas/tailpk.py):
-    #: in-VMEM tracking + scatter + RR once the pending count fits
-    #: tail_pk_width rows; requires const/affine albedo
-    tail_pallas: bool = False
-    tail_pk_width: int = 128
-    tail_pk_steps: int = 16
     settings: RenderSettings = dataclasses.field(
         default_factory=lambda: RenderSettings.from_flags(True)
     )

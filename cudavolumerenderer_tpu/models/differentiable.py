@@ -1,7 +1,7 @@
 """Differentiable rendering: gradients of pixel radiance w.r.t. the voxel
 density and albedo grids through the stochastic transmittance estimator.
 
-New capability over the reference (per BASELINE.json), designed TPU-first
+New capability over the reference (per BASELINE.json), designed
 as *path-replay backprop* with a score-function density estimator:
 
   forward:   render as usual (any scheduler); save nothing but the seed.
@@ -21,8 +21,8 @@ as *path-replay backprop* with a score-function density estimator:
 
   This stores O(1) per path (recompute instead of record — the
   jax.checkpoint philosophy applied to a stochastic estimator), and every
-  adjoint is a segment-sum-style scatter, the TPU-native replacement for
-  atomic gradient accumulation.
+  adjoint is a segment-sum-style scatter-add (which XLA lowers to
+  atomic adds on the GPU, as the reference would accumulate gradients).
 
 Sampling decisions are treated as fixed under differentiation
 (stop-gradient free flight); Russian roulette decisions are likewise
@@ -588,7 +588,7 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     their per-lane results to lane-id-indexed output buffers and
     survivors argsort-compact into the narrower pool.  Pass A/B stop
     paying full width for the straggler tail (occupancy was decaying to
-    ~0 over the drain; VERDICT r4 weak item 2).  Per-lane draw streams
+    ~0 over the drain).  Per-lane draw streams
     are untouched by compaction (RNG travels with the lane), so
     radiance/throughput stay bit-identical; cotangent buffers see a
     different scatter-add grouping (different pool partitions), so they
@@ -898,21 +898,20 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     for stage, width in enumerate(widths):
         last = stage == len(widths) - 1
         thresh = 0 if last else widths[stage + 1]
-        # narrow pools amortize per-iteration loop overhead by chaining
-        # several complete body evaluations per while-iteration (masked
-        # draws keep per-lane streams identical; evaluations past the
-        # exit condition are no-ops) — the forward tail_chain analog
-        k_chain = 8 if (len(widths) > 1 and width <= 4096) else 1
-
-        def chained(c, _k=k_chain):
-            for _ in range(_k):
-                c = body(c)
-            return c
+        # narrow pools may chain several complete body evaluations per
+        # while-iteration (masked draws keep per-lane streams identical;
+        # evaluations past the exit condition are no-ops) — the forward
+        # tail_chain, with its default (fast._TAIL_CHAIN)
+        k_chain = (
+            fast._TAIL_CHAIN if (len(widths) > 1 and width <= 4096) else 1
+        )
 
         def cond(c, _thresh=thresh):
             return jnp.sum(c[4].astype(jnp.int32)) > _thresh
 
-        carry = jax.lax.while_loop(cond, chained, carry)
+        carry = jax.lax.while_loop(
+            cond, fast.chain_body(body, k_chain), carry
+        )
         outs = flush(carry, outs)
         if not last:
             dd, da = carry[18], carry[19]

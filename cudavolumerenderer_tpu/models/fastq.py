@@ -1,8 +1,8 @@
 """fastQ: queue-fed fast wavefront with deferred splat flush.
 
 STATUS: design study, not the shipping path (PARITY.md §2.5) — wins
-lane *utilization* (42%→69% on CPU) but loses wall-clock on TPU to
-fastSK's cascade compaction (PERF.md round-1); kept behind
+lane *utilization* (42%→69% on CPU) but lost wall-clock to fastSK's
+cascade compaction when it was last measured; kept behind
 `--kernel fastQ`.
 
 Addresses the one weakness of fastSK's lane-pinned design: the straggler

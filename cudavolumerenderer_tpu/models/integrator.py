@@ -1,6 +1,6 @@
 """Shared volumetric path-tracing physics over a ray wavefront.
 
-This module is the TPU re-expression of the bounce body that every
+This module is the wavefront re-expression of the bounce body that every
 reference kernel repeats verbatim (reference:
 implementation/src/NaiveVolPTsk_kernel.cuh:35-86 and the identical blocks in
 the regeneration/streaming/sorting kernels): intersect the medium AABB →

@@ -1,6 +1,6 @@
 """Naive megakernel scheduler: one lane per path, no regeneration.
 
-TPU analog of naiveSK (reference: implementation/src/NaiveVolPTsk_kernel.cuh
+Wavefront analog of naiveSK (reference: implementation/src/NaiveVolPTsk_kernel.cuh
 and its launcher, RenderKernelLauncher.cu:131-158): every path of the tile
 batch gets a lane up front; the wavefront runs the shared bounce loop until
 all lanes die.  Dead lanes idle until the slowest path finishes — exactly

@@ -1,6 +1,6 @@
 """Regeneration scheduler: persistent wavefront + deterministic work queue.
 
-TPU analog of regenerationSK, the reference's default and usually fastest
+Wavefront analog of regenerationSK, the reference's default and usually fastest
 strategy (reference: implementation/src/RegenerationVolPTsk_kernel.cuh:147-232
 and its launcher RenderKernelLauncher.cu:281-351): a fixed-size pool of
 lanes runs bounce after bounce; whenever a lane's path dies it immediately
@@ -48,7 +48,7 @@ def _regenerate(
     RegenerationVolPTsk_kernel.cuh:22-141,238-352): a group of
     `refill_group` consecutive lanes refills only once EVERY lane in the
     group is dead, and then refills together.  1 = thread-level (each
-    lane independently), 8 = the VPU sublane-group analog of a warp,
+    lane independently), 8 = a small lane group, the analog of a warp,
     1024 = the lane-row analog of a block.  The estimator is unchanged
     (streams stay keyed by (seed, path_id)); only queue-pull cadence and
     lane idle time differ — thesis Tables 4.3/4.4 measure this axis.

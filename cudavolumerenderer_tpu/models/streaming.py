@@ -1,9 +1,9 @@
 """Streaming scheduler: fully-fused single-step wavefront state machine.
 
-TPU analog of streamingSK (reference:
+Wavefront analog of streamingSK (reference:
 implementation/src/StreamingVolPTsk_kernel.cuh:27-360): the reference keeps
 a block-resident SoA ray slab and alternates regenerate → extend → compact
-super-iterations.  On TPU the same idea becomes one flat `lax.while_loop`
+super-iterations.  Here the same idea becomes one flat `lax.while_loop`
 in which *every* iteration does a constant amount of uniform work per lane:
 
   1. dead lanes are refilled from the deterministic path queue

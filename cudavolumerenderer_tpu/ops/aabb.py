@@ -2,7 +2,7 @@
 
 Re-expresses the reference's AABB slab test (reference:
 implementation/src/Geometry.h:55-92) as a branchless array program: the
-whole ray wavefront is intersected in one shot on the VPU, with the
+whole ray wavefront is intersected in one shot as elementwise array code, with the
 reference's exact tie-breaking rules (distance selection, face-normal
 pick order, inside/outside classification) reproduced via where-cascades
 so images stay comparable.

@@ -1,6 +1,6 @@
 """Dense voxel-grid containers and batched samplers.
 
-TPU-native replacement for the reference's cudaArray 3-D textures and
+Array replacement for the reference's cudaArray 3-D textures and
 manual trilinear path (reference: implementation/src/Volume.h:32-114,
 implementation/src/RenderKernelLauncher.cu:5-65,
 implementation/src/CudaVolPath.cpp:118-186).  Grids are plain (Z, Y, X[,C])

@@ -5,7 +5,7 @@ utilities (reference: implementation/src/CVRMath.h, the Frame used in
 NaiveVolPTsk_kernel.cuh:55-57, and generateLocalBasis in
 implementation/src/HG.h:11-24) with broadcasting JAX ops: every function
 acts on arbitrarily batched stacks of 3-vectors so a whole ray wavefront is
-one VPU-friendly array program.
+one elementwise array program.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Replaces the reference's single-GPU execution model with jax.sharding
 (SURVEY.md §2.8 mapping): the first-class parallel axis is 'rays' — data
 parallelism over paths/samples — with voxel grids replicated and images /
-gradients reduced with psum over ICI/DCN.
+gradients reduced with psum over the device interconnect (NVLink
+within a host).
 """
 
 from __future__ import annotations

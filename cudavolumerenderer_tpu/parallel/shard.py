@@ -4,7 +4,7 @@ The multi-chip re-expression of the reference's parallelism (SURVEY.md
 §2.8): samples (paths) are sharded across the 'rays' mesh axis — each
 device renders a disjoint set of sample indices for the same image with
 its own deterministic RNG streams — and per-device partial images are
-summed with psum over ICI.  This is exactly the role atomicVectorAdd on
+summed with psum over NVLink.  This is exactly the role atomicVectorAdd on
 d_output plays on the GPU (Utilities.cuh:15-22), lifted to the
 inter-chip level.  Voxel grids are replicated; the inverse pass psums the
 per-voxel cotangent grids the same way (gradient all-reduce overlapped by

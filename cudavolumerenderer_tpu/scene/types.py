@@ -33,9 +33,8 @@ class Medium(NamedTuple):
     g: jnp.ndarray  # () HG anisotropy (reference default 0, Volume.h:20)
     #: (2, 3) [A; B] when albedo == A * density + B voxelwise (detected at
     #: build time), else None.  Lets the fastSK fused table stay a flat
-    #: density-only vector — 1-channel gathers run ~1.4x faster than
-    #: 4-channel rows on v5e (PERF.md cost model) and the table shrinks
-    #: 4x.  Both the medical-class synthetic and the MHD red-channel
+    #: density-only vector — one 4-byte gather per tap instead of a
+    #: 16-byte row, and the table shrinks 4x.  Both the medical-class synthetic and the MHD red-channel
     #: albedo convention (scripts/convert-mhd/mhd_to_vdb.py:61-74) are
     #: affine in density.
     #:

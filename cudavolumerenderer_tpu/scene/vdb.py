@@ -3,7 +3,7 @@
 The reference links OpenVDB through an isolation library and flattens
 sparse grids to dense linear arrays at load time (reference:
 vdb_adapter/VDBAdapter.cpp:56-114, implementation/src/VDBSceneBuilder.h:40-80).
-OpenVDB is not available in this environment, so the TPU build splits the
+OpenVDB is not available in this environment, so this build splits the
 pipeline the same way the reference splits MHD conversion into an offline
 Docker step (reference: scripts/convert-mhd/*):
 

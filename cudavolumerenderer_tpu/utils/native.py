@@ -2,14 +2,17 @@
 
 The reference's data path is C++ (scene parsing, sparse->dense
 flattening, Morton re-layout, stb image encode); ours mirrors that with a
-small C++ shared library.  Every entry point has a pure-NumPy fallback so
-the framework works without the build step; `available()` reports which
-path is active.  The library is built on demand with `make -C csrc`.
+small C++ shared library, built from csrc/ at first use in each process
+(`make -C csrc`, a no-op when the library is up to date).  The array
+helpers have pure-NumPy fallbacks and `available()` reports which path is
+active; the .vdb reader has none, so it raises with the failed build
+command instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -18,8 +21,9 @@ import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_BUILD_ERROR: Optional[str] = None
 
-BRICK_SHAPE = (4, 4, 8)  # (z, y, x) voxels = 128 entries = one vector row
+BRICK_SHAPE = (4, 4, 8)  # (z, y, x) voxels = 128 entries
 
 
 def _repo_root() -> str:
@@ -28,29 +32,54 @@ def _repo_root() -> str:
     )
 
 
+def _build(csrc: str) -> Optional[str]:
+    """Run make under an exclusive lock (concurrent test workers build
+    once; the Makefile's atomic rename covers callers outside the lock).
+    Returns None on success, else a message naming the command."""
+    cmd = ["make", "-s", "-C", csrc]
+    try:
+        with open(os.path.join(csrc, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            proc = subprocess.run(
+                cmd, capture_output=True, text=True, timeout=300
+            )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"`{' '.join(cmd)}` failed: {e}"
+    if proc.returncode != 0:
+        return (
+            f"`{' '.join(cmd)}` exited {proc.returncode}: "
+            f"{proc.stderr.strip()[-2000:]}"
+        )
+    return None
+
+
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _BUILD_ERROR
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = os.path.join(_repo_root(), "csrc", "libcvr_native.so")
-    if not os.path.exists(so):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.join(_repo_root(), "csrc")],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            return None
-    if not os.path.exists(so):
+    csrc = os.path.join(_repo_root(), "csrc")
+    _BUILD_ERROR = _build(csrc)
+    if _BUILD_ERROR is not None:
         return None
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(os.path.join(csrc, "libcvr_native.so"))
     lib.cvr_morton_reorder.restype = ctypes.c_int
     lib.cvr_brick_pack.restype = ctypes.c_int
     lib.cvr_brick_max.restype = ctypes.c_int
     lib.cvr_rgbe_encode.restype = ctypes.c_int
     lib.cvr_normalize_u8.restype = ctypes.c_int
     _LIB = lib
+    return lib
+
+
+def _require() -> ctypes.CDLL:
+    """The library, or a RuntimeError naming the build that failed."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"native library unavailable ({_BUILD_ERROR}); "
+            ".vdb reading requires the csrc build"
+        )
     return lib
 
 
@@ -106,7 +135,7 @@ def brick_pack(
 ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int]]:
     """(Z,Y,X[,C]) → (n_bricks, 128, C) brick-major layout + per-brick
     majorant of the last channel.  Brick = 4x4x8 (z,y,x), x-fastest —
-    exactly one 128-lane vector row for the Pallas tracking kernel.
+    128 contiguous entries per brick.
 
     Returns (bricks, brick_max, (nbx, nby, nbz))."""
     v = np.ascontiguousarray(volume_zyx, np.float32)
@@ -169,11 +198,7 @@ def rgbe_encode(rgb: np.ndarray) -> np.ndarray:
 def vdb_grid_info(path: str, grid_name: str):
     """Active-voxel bbox + channel count of a grid in a .vdb archive
     (native reader, csrc/cvr_vdb.cpp).  Returns (bbox6, channels)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(
-            "native library unavailable; .vdb reading requires csrc build"
-        )
+    lib = _require()
     lib.cvr_vdb_grid_info.restype = ctypes.c_int
     lib.cvr_vdb_last_error.restype = ctypes.c_char_p
     bbox = np.zeros(6, np.int32)
@@ -195,11 +220,7 @@ def vdb_densify(path: str, grid_name: str, channels: int, bbox=None):
     """Densify a .vdb grid over its active bbox (or a given bbox) into a
     (Z, Y, X, channels) float32 array — the reference VDBAdapter's
     flattening (inactive voxels = 0).  Returns (array, bbox)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(
-            "native library unavailable; .vdb reading requires csrc build"
-        )
+    lib = _require()
     if bbox is None:
         bbox, file_channels = vdb_grid_info(path, grid_name)
         if file_channels != channels:

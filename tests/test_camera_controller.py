@@ -1,4 +1,4 @@
-"""Interactive camera-controller parity (VERDICT r2 item 10): the
+"""Interactive camera-controller parity: the
 quaternion rotate/zoom/pan dynamics of Camera.h:74-122 and the
 motion → accumulation-reset flow of InteractiveRenderer.h:241-282."""
 

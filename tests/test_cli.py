@@ -52,8 +52,8 @@ class TestParsing:
     def test_quantized_table_gate(self):
         """table_bits < 32 under mitsuba_comparable needs the explicit
         --allow-quantized opt-in; the opt-in keeps trilinear filtering
-        (ADVICE r4: quantized champions must be CLI-reachable through
-        the production gate)."""
+        (quantized champions must be CLI-reachable through the
+        production gate)."""
         args = cli.build_parser().parse_args(["s.raw", "--table-bits", "4"])
         config = cli.config_from_args(args)
         assert config.effective_table_bits == 32

@@ -1,9 +1,10 @@
-"""Tests for the fastSK TPU-tuned scheduler: energy conservation under
+"""Tests for the fastSK wavefront scheduler: energy conservation under
 stochastic trilinear filtering and statistical agreement with the
 reference-faithful schedulers."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from cudavolumerenderer_tpu.models import fast, naive
 from cudavolumerenderer_tpu.ops.camera import make_camera
@@ -135,6 +136,29 @@ class TestFast:
             np.testing.assert_array_equal(
                 np.asarray(ref), np.asarray(img), err_msg=str(f)
             )
+
+    @pytest.mark.parametrize("chain", [2, 8])
+    def test_tail_chain_bit_exact(self, chain):
+        """Chaining tail evaluations changes only how often the pool's
+        pending count is read: evaluations past the exit are no-ops, so
+        images and ray counts are bit-identical across chain lengths."""
+        scene = blob_scene()
+        args = make_args(scene, 16, 4)
+        kw = dict(min_width=32, tail_width=1 << 20)
+        ref, ref_rays = fast.render_tile(*args, tail_chain=1, **kw)
+        img, rays = fast.render_tile(*args, tail_chain=chain, **kw)
+        np.testing.assert_array_equal(np.asarray(ref), np.asarray(img))
+        assert float(rays) == float(ref_rays)
+
+    def test_chain_body_is_repeated_body(self):
+        body = lambda s: (s[0] * 3 + 1, s[1] + 1)
+        s0 = (jnp.int32(2), jnp.int32(0))
+        assert fast.chain_body(body, 1) is body
+        out = fast.chain_body(body, 4)(s0)
+        ref = s0
+        for _ in range(4):
+            ref = body(ref)
+        assert [int(x) for x in out] == [int(x) for x in ref]
 
     def test_fractional_cascade_widths_monotone(self):
         for f in (1.25, 1.33, 1.5, 2, 4):
@@ -306,7 +330,7 @@ class TestAffineAlbedo:
 
     def test_flat_table_matches_full_table(self):
         """The 1-channel affine table reproduces the 4-channel fused
-        table to float32 rounding (same draws, same taps; the VPU
+        table to float32 rounding (same draws, same taps; the
         reconstruction A*rho+B may differ from the stored albedo by one
         ulp, and detection itself tolerates atol 2e-6)."""
         dens = procedural.blob_volume()
@@ -393,6 +417,22 @@ def test_packed_table_quantization_bounded():
                             path_id_base=0, table_bits=8, **common)
     am, bm = float(np.asarray(a).mean()), float(np.asarray(b).mean())
     assert abs(am - bm) / am < 0.01
+
+
+@pytest.mark.parametrize(
+    "backend, expected",
+    [("cpu", fast._MIN_WIDTH["cpu"]), ("gpu", fast._MIN_WIDTH["gpu"]),
+     ("rocm", None)],
+)
+def test_default_min_width_per_backend(monkeypatch, backend, expected):
+    """The cascade bottom is chosen per backend; a backend without a
+    measured value is refused rather than given a guess."""
+    monkeypatch.setattr(fast.jax, "default_backend", lambda: backend)
+    if expected is None:
+        with pytest.raises(ValueError, match="rocm"):
+            fast._default_min_width()
+    else:
+        assert fast._default_min_width() == expected
 
 
 def test_max_bricks_config_plumbing():

@@ -317,7 +317,7 @@ class TestFusedReplay:
         # nested replays partition them into different .at[].add calls
         # (per-iteration vs per-bounce), so float accumulation grouping
         # can differ when multiple lanes hit one voxel — those get a
-        # tight allclose, not bit-equality (ADVICE r4)
+        # tight allclose, not bit-equality
         for field in ("radiance", "throughput"):
             a = np.asarray(getattr(outs[False], field))
             b = np.asarray(getattr(outs[True], field))

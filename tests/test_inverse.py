@@ -136,8 +136,8 @@ class TestInverse:
         """A run killed at step k and resumed from its checkpoint must
         reproduce the unbroken run's loss trajectory EXACTLY: the
         checkpoint carries the Adam moments and the seed schedule
-        derives from (config.seed, step) — VERDICT r2 item 3 (the
-        round-2 checkpoint silently dropped opt_state)."""
+        derives from (config.seed, step) (an earlier checkpoint
+        silently dropped opt_state)."""
         from cudavolumerenderer_tpu.models.inverse import (
             find_latest_checkpoint,
             run_inverse_views,

@@ -4,7 +4,7 @@ The reference is strictly single-process/single-GPU; multi-host data
 parallelism over rays is this rebuild's §2.8 mandate (SURVEY.md §7
 stage 7).  These tests run the REAL jax.distributed path — coordinator,
 gloo collectives, process-spanning mesh — as two local CPU processes,
-which is the one multi-host axis testable without a pod.  In-process
+which is the one multi-host axis testable without a cluster.  In-process
 8-virtual-device sharding (tests/test_sharding.py) cannot exercise
 process-spanning meshes; this does.
 """

@@ -11,6 +11,20 @@ def fresh():
     native._LIB = None
 
 
+def test_failed_build_raises_naming_command(tmp_path, monkeypatch):
+    """The .vdb reader has no fallback: a library that cannot be built
+    is an error that names the build command, not a silent skip."""
+    fresh()
+    monkeypatch.setattr(native, "_repo_root", lambda: str(tmp_path))
+    try:
+        assert not native.available()
+        with pytest.raises(RuntimeError, match="make -s -C"):
+            native.vdb_grid_info(str(tmp_path / "x.vdb"), "density")
+    finally:
+        monkeypatch.undo()
+        fresh()
+
+
 class TestNative:
     def test_builds_and_loads(self):
         fresh()

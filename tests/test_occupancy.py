@@ -18,6 +18,38 @@ from cudavolumerenderer_tpu.scene.types import (
 from cudavolumerenderer_tpu.utils import occupancy
 
 
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+class TestMemoryBudget:
+    def test_gpu_without_stats_raises(self):
+        """No size is assumed for an accelerator that reports none."""
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            occupancy.device_memory_budget(_FakeDevice("gpu", None))
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            occupancy.device_memory_budget(_FakeDevice("gpu", {}))
+
+    def test_reads_bytes_limit_and_cpu_default(self):
+        import jax
+
+        assert occupancy.device_memory_budget(
+            _FakeDevice("gpu", {"bytes_limit": 123 << 20})
+        ) == 123 << 20
+        assert occupancy.device_memory_budget(
+            jax.devices("cpu")[0]
+        ) == occupancy.CPU_BUDGET_BYTES
+        assert occupancy.device_memory_budget() == (
+            occupancy.CPU_BUDGET_BYTES
+        )
+
+
 class TestPoolAutotune:
     def test_bounded_by_work(self):
         # tiny job: the pool never exceeds the path count (rounded to 256)
@@ -116,7 +148,7 @@ class TestSplitAlbedoMode:
                 # fused 512 KiB > 30% of 1 MB)
                 monkeypatch.setattr(
                     occupancy, "device_memory_budget",
-                    lambda default=0: 1_000_000,
+                    lambda device=None: 1_000_000,
                 )
                 assert (
                     fast._albedo_mode(scene, allow_split=True) == "split"

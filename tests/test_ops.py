@@ -131,7 +131,7 @@ class TestCamera:
     def test_resolution_override_preserves_pose(self):
         """The loader's resolution override must keep a posed look-at
         camera's orientation and only re-derive the fov aspect
-        (VERDICT r4 weak item 7: the old path rebuilt the camera from
+        (the old path rebuilt the camera from
         position alone, silently dropping orientation)."""
         from cudavolumerenderer_tpu.scene.loader import override_resolution
 
@@ -169,6 +169,54 @@ class TestCamera:
         )
         to_target = -np.asarray(eye) / np.linalg.norm(eye)
         assert float(np.dot(np.asarray(d[0]), to_target)) > 0.999
+
+    def test_directions_match_float64_at_narrow_fov(self):
+        _check_directions_float64(jax.devices("cpu")[0])
+
+
+def _check_directions_float64(device):
+    """At fov 0.7 deg neighbouring pixel directions differ by ~1e-4
+    rad, so the view-to-world rotation must keep full f32 (a TF32
+    contraction keeps ~3 digits): compare rays generated on `device`
+    with a float64 NumPy rotation of the same jittered raster points."""
+    res = 512
+    c = camera.make_camera_look_at(
+        (60.0, 30.0, 50.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+        res, res, 0.7,
+    )
+    pix = np.stack(np.meshgrid(
+        np.arange(0, res, 37.0), np.arange(0, res, 41.0)
+    ), -1).reshape(-1, 2).astype(np.float32)
+    r = rng.make_rng(3, jnp.arange(len(pix)))
+    gen = jax.jit(
+        lambda c, p, r: camera.generate_rays(c, p, (res, res), r)[1]
+    )
+    d = gen(*jax.device_put((c, jnp.asarray(pix), r), device))
+    u1, u2, _ = rng.next_float2(r)
+    jitter = np.stack([np.asarray(u1), np.asarray(u2)], -1)
+    raster = ((pix + jitter) * 2.0 / res - 1.0).astype(np.float64)
+    raster *= np.asarray(c.raster_to_view, np.float64)
+    d_view = np.concatenate([raster, np.ones((len(pix), 1))], -1)
+    d_view /= np.linalg.norm(d_view, axis=-1, keepdims=True)
+    rot = np.asarray(c.inv_view, np.float64)[:, :3]
+    np.testing.assert_allclose(
+        np.asarray(d), d_view @ rot.T, rtol=0, atol=1e-6
+    )
+
+
+@pytest.fixture
+def gpu_device():
+    """The first GPU, or a skip: decided when the test runs, never at
+    import (README, "Tests")."""
+    try:
+        return jax.devices("gpu")[0]
+    except RuntimeError:
+        pytest.skip("no GPU visible to JAX")
+
+
+@pytest.mark.gpu
+def test_camera_directions_full_precision_on_gpu(gpu_device):
+    _check_directions_float64(gpu_device)
 
 
 class TestGrid:

@@ -103,7 +103,7 @@ def test_progressive_pass_batched_equals_sequential():
 
 def test_run_pass_uneven_progress_respects_iteration_cap():
     """Mixing public run_iterations with run_pass must never render a
-    tile past config.iterations (round-3 ADVICE: the batched pass added
+    tile past config.iterations (an earlier batched pass added
     spp to EVERY tile, re-brightening completed ones)."""
     scene = _scene()
     res = 16

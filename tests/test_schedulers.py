@@ -2,7 +2,7 @@
 
 Because every path's RNG stream is keyed by (seed, path_id) and draws are
 masked per lane, each scheduling strategy computes the *same* Monte-Carlo
-estimate — the TPU analog of the reference's claim that its six kernels
+estimate — the wavefront analog of the reference's claim that its six kernels
 run identical physics and differ only in work distribution (SURVEY.md
 §2.5).  Differences are limited to float addition order in the image
 scatter-add."""

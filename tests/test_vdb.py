@@ -9,9 +9,13 @@ import pytest
 from cudavolumerenderer_tpu.scene import vdb
 from cudavolumerenderer_tpu.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library not built"
-)
+
+@pytest.fixture(autouse=True)
+def native_library():
+    """Build (or find) the native reader when a test runs, not while the
+    module is collected: collection in several workers must not run make."""
+    if not native.available():
+        pytest.skip(f"native library unavailable: {native._BUILD_ERROR}")
 
 
 def sparse_volume(shape=(21, 29, 37), seed=5):
